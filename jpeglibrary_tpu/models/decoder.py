@@ -1,9 +1,9 @@
 """Top-level JPEG decoder driver.
 
 API parity with the reference JpegDecoder
-(/root/reference/src/JpegLibrary/JpegDecoder.cs:19-978:
+(JpegDecoder.cs:19-978:
  SetInput/Identify/Decode/LoadTables/TryEstimateQuanlity/Reset*),
-re-architected for the TPU pipeline:
+re-architected as a host-scan + device-transform pipeline:
 
 - The host walks the container once (io.reader), maintaining the table
   registries in stream order and snapshotting per-scan state into a
@@ -280,10 +280,10 @@ class DecodeResult:
     def to_rgb8_device(self, *, sparse: bool = True, upsample: str = "duplicate",
                        scale: float = 1.0):
         """Decode to device-resident **planar [3, H, W]** RGB (the
-        serving path: output stays in HBM for a downstream TPU
-        consumer; CHW keeps W on the lane dimension — an interleaved
-        [H, W, 3] device buffer lane-pads 3 -> 128, a ~42x memory and
-        wire blowup). With ``sparse``, only the nonzero coefficients
+        serving path: output stays in device memory for a downstream
+        device consumer, one contiguous plane per channel; whether an
+        interleaved [H, W, 3] output would be cheaper on the GPU is not
+        measured). With ``sparse``, only the nonzero coefficients
         ship to the device as one flat (delta, value) stream.
         ``scale`` in {1, 1/2, 1/4, 1/8} selects the reduced-IDCT
         thumbnail transform (see to_rgb8_scaled); the wire payload is
@@ -448,8 +448,7 @@ class DecodeResult:
 
         Pure host computation with the bit-exact reference semantics —
         the device-resident serving output is ``to_rgb8_device()``
-        (planar, stays in HBM; avoids the device->host hop, which over a
-        remote-attached chip can cost more than the whole decode)."""
+        (planar, stays in device memory; no device->host copy)."""
         from ..ops import color as color_ops
 
         if upsample not in ("duplicate", "fancy"):

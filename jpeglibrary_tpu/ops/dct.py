@@ -1,17 +1,17 @@
 """Batched 8x8 forward/inverse DCT with the exact float32 AAN-style
-butterfly dataflow of the reference
-(/root/reference/src/JpegLibrary/FastFloatingPointDCT.cs:54-364).
+butterfly dataflow of the reference (FastFloatingPointDCT.cs:54-364).
 
-Design notes (TPU-first):
+Design notes:
 
 - The butterfly is pure elementwise float32 adds/muls over the batch:
-  each stage combines whole rows ``x[..., k, :]``. On TPU this runs on
-  the VPU; with blocks laid out ``[N, 8, 8]`` XLA tiles N*8 across
-  sublanes and keeps every op an 8-lane-friendly vector op. We keep the
-  *identical operation order* as the reference so that float32 results
-  are bit-identical (IEEE-754 add/mul, no FMA contraction, no
-  reassociation) — this is what makes whole-pipeline decode output
-  exactly equal to the reference's committed golden fixtures.
+  each stage combines whole rows ``x[..., k, :]``, which XLA fuses into
+  one elementwise loop. We keep the *identical operation order* as the
+  reference so that float32 results are bit-identical under NumPy
+  (IEEE-754 add/mul, no FMA contraction, no reassociation) — this is
+  what makes whole-pipeline host decode output exactly equal to the
+  reference's committed golden fixtures. A compiled device program may
+  contract a multiply-add into an FMA, which moves a result by at most
+  1 ulp; the device path's contract is therefore <=1 sample LSB.
 
 - The same function body serves NumPy (host golden path) and
   jax.numpy (device path): only +, -, * and stacking are used.
@@ -188,3 +188,15 @@ def fdct8x8(blocks, xp=np):
     x = _transpose(x, xp)
     x = _fdct_1d(x, xp)
     return x * _C_0_125
+
+
+def matmul(a, b, xp=np):
+    """``a @ b`` in float32. On the device the product is pinned to full
+    float32 precision: a GPU otherwise may run a float32 matrix product
+    in TF32, whose ~10 mantissa bits move dequantised coefficients in
+    the thousands by whole sample levels."""
+    if xp is np:
+        return a @ b
+    import jax
+
+    return xp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)

@@ -261,10 +261,8 @@ _SCALED_FOLDED_CACHE: Dict[int, "np.ndarray"] = {}
 
 
 def scaled_folded_matrix(n: int) -> "np.ndarray":
-    """[64, n*n] folded reduced-IDCT: un-zigzag + R (x) R in ONE matmul
-    over the zig-zag coefficient vector — the same single-matmul shape
-    the full-resolution Pallas path uses, which is what the MXU wants
-    (the tiny [n, 8] einsum form lowers poorly on TPU)."""
+    """[64, n*n] folded reduced-IDCT: un-zigzag + R (x) R in ONE matrix
+    over the zig-zag coefficient vector."""
     if n in _SCALED_FOLDED_CACHE:
         return _SCALED_FOLDED_CACHE[n]
     R = scaled_idct_matrix(n).astype(np.float64)  # [x, u]
@@ -280,18 +278,6 @@ def scaled_folded_matrix(n: int) -> "np.ndarray":
     return M
 
 
-def dequantize_idct_shift_scaled(coeffs_zz, quant_zz, level_shift: int,
-                                 n: int, xp=np):
-    """[..., 64] zig-zag coeffs -> [..., n, n] int32 samples at scale n/8."""
-    deq = (coeffs_zz.astype(xp.int32) * quant_zz.astype(xp.int32)).astype(
-        xp.float32
-    )
-    M = xp.asarray(scaled_folded_matrix(n))
-    pixels = deq @ M  # [..., 64] @ [64, n*n]
-    pixels = pixels.reshape(pixels.shape[:-1] + (n, n))
-    return xp.rint(pixels).astype(xp.int32) + level_shift
-
-
 def component_plane_scaled(coeffs_zz, quant_zz, level_shift: int,
                            hs: int, vs: int, out_h: int, out_w: int,
                            n: int, xp=np):
@@ -299,10 +285,9 @@ def component_plane_scaled(coeffs_zz, quant_zz, level_shift: int,
     of the n/8-scaled image.
 
     Computed as n*n per-output-position matvecs producing full [Hb, Wb]
-    planes, then one interleaving transpose — on TPU the minor (lane)
-    dimension pads to 128, so the direct [..., n, n] form (minor n <= 4)
-    wastes ~all of every vector op; the per-position planes keep Wb on
-    the lanes throughout.
+    planes, then one interleaving transpose, so every intermediate keeps
+    the block column as its minor axis. Whether the direct [..., n, n]
+    form would be cheaper on the GPU is not measured.
     """
     hb, wb = coeffs_zz.shape[0], coeffs_zz.shape[1]
     deq = (coeffs_zz.astype(xp.int32) * quant_zz.astype(xp.int32)).astype(
@@ -310,7 +295,7 @@ def component_plane_scaled(coeffs_zz, quant_zz, level_shift: int,
     )
     M = xp.asarray(scaled_folded_matrix(n))
     grid = xp.stack(
-        [deq @ M[:, k] for k in range(n * n)]
+        [dct.matmul(deq, M[:, k], xp=xp) for k in range(n * n)]
     )  # [n*n, Hb, Wb], position k = x*n + y inside the scaled block
     grid = xp.rint(grid).astype(xp.int32) + level_shift
     plane = (

@@ -24,16 +24,10 @@ ReceiveAndExtend (JpegHuffmanScanDecoder.cs:81-117) and the baseline
 block walk (JpegHuffmanBaselineScanDecoder.cs:99-235) exactly, so the
 output coefficients are bit-identical to the host scanner's.
 
-CONCLUSION (measured on the real v5e chip; see BASELINE.md "Device
-entropy-scan experiment"): bit-exact but ~40x slower than ONE host
-core — 10.9 MP/s (385 ms / 4.2 MP image at 128 segment-lanes,
-device-resident distinct inputs) vs the C++ scanner's 426 MP/s 1T /
-~1000 MP/s 4T on the same stream. Each symbol costs 5+ data-dependent
-gathers the VPU cannot batch (~0.22 us/symbol across 128 lanes), and
-the while_loop trips once per symbol of the longest segment. Entropy
-decode is architecturally wrong for a vector machine even with
-restart-segment parallelism; the host-scan + device-transform split
-is the right design, now backed by a number instead of an assumption.
+Status: bit-exact against the host scanner. Each symbol costs
+several data-dependent gathers and the while_loop trips once per
+symbol of the longest segment. Its speed on the GPU is not measured,
+so whether entropy decode should move to the device stays open.
 """
 
 from __future__ import annotations
@@ -245,27 +239,40 @@ def _compiled_decoder(bpm: int, n_comps: int, width: int, n_segs: int,
     return jax.jit(decode)
 
 
-def decode_segments_device(buf: np.ndarray, const) -> np.ndarray:
-    """Run the device decoder; returns dense [n_segments,
-    max_blocks*64] int32 coefficients in segment-local MCU order."""
-    import jax
-
+def decoder_program(buf: np.ndarray, const):
+    """The compiled device decoder for a prepared scan and its
+    arguments: ``fn(*args)`` returns dense [n_segments, max_blocks*64]
+    int32 coefficients in segment-local MCU order."""
     lookahead, maxcode, valoffset, values = const["tables"]
     max_blocks = int(const["mcu_counts"].max()) * const["bpm"]
     fn = _compiled_decoder(
         const["bpm"], const["n_comps"], buf.shape[1], buf.shape[0],
         max_blocks,
     )
-    return fn(
+    return fn, (
         buf, const["comp_of"], const["mcu_counts"],
         lookahead, maxcode, valoffset, values,
     )
+
+
+def decode_segments_device(buf: np.ndarray, const) -> np.ndarray:
+    """Run the device decoder; returns dense [n_segments,
+    max_blocks*64] int32 coefficients in segment-local MCU order."""
+    fn, args = decoder_program(buf, const)
+    return fn(*args)
 
 
 def decode_baseline_device(data: bytes) -> Tuple[np.ndarray, object]:
     """End-to-end experiment entry: parse the container on host, run
     the ENTROPY DECODE on device, return (dense [S, max_blocks*64]
     coefficients, geometry). Baseline single-scan streams only."""
+    buf, const, geo = prepare_baseline(data)
+    return decode_segments_device(buf, const), geo
+
+
+def prepare_baseline(data: bytes):
+    """Host side of :func:`decode_baseline_device`: parse the container
+    and prepare the first scan; returns ``(buf, const, geometry)``."""
     from ..io import reader as io_reader
     from ..models.decoder import JpegDecoder
     from ..models.geometry import frame_geometry
@@ -291,4 +298,4 @@ def decode_baseline_device(data: bytes) -> Tuple[np.ndarray, object]:
         data, stream.scans[0].spans, frame, scan_header,
         dec._dc_tables, dec._ac_tables, dec._restart_interval, geo,
     )
-    return decode_segments_device(buf, const), geo
+    return buf, const, geo

@@ -71,9 +71,8 @@ import functools
 @functools.lru_cache(maxsize=1)
 def fdct_zigzag_matrix() -> np.ndarray:
     """[64, 64] f32: the 2-D AAN FDCT + 0.125 scale + zig-zag output
-    permutation folded into one matrix — the forward twin of the decode
-    Pallas kernel's formulation: one GEMM per block tile instead of the
-    30-step butterfly chain (same transform, f32 summation order
+    permutation folded into one matrix — one GEMM per block tile instead
+    of the 30-step butterfly chain (same transform, f32 summation order
     differs, so a quantized coefficient can shift by 1 LSB vs the
     butterfly; the encoder has no bit-exact gate)."""
     f = dct._fdct_1d(np.eye(8, dtype=np.float64), np)  # 1-D pass matrix
@@ -94,27 +93,13 @@ def fdct_quantize(plane, quant_zz, xp=np, *, use_matmul: bool = True,
     Level shift, AAN FDCT, zig-zag, rint(c / q) — float32 division then
     round-half-even, matching ZigZagAndQuantizeBlock
     (JpegEncoder.cs:812-827 with JpegMathHelper.RoundToInt16).
-    ``use_matmul`` selects the folded-GEMM formulation (default, ~15x
-    faster on host BLAS and MXU-shaped on device); False runs the
+    ``use_matmul`` selects the folded-GEMM formulation (default, one
+    matrix product at full float32 precision); False runs the
     reference butterfly dataflow. ``level_shift`` = 1 << (P - 1)
     (2048 for direct 12-bit sample encode — beyond the reference's
     8-bit-only encoder, JpegEncoder.cs:108)."""
     h, w = plane.shape
     hb, wb = h // 8, w // 8
-    if use_matmul and xp is not np and level_shift == 128.0:
-        from .pipeline import _use_pallas
-
-        if _use_pallas():
-            # fused Pallas kernel: level shift + folded FDCT + quantize
-            from . import pallas_kernels
-
-            flat = (
-                plane.reshape(hb, 8, wb, 8)
-                .transpose(0, 2, 1, 3)
-                .reshape(hb * wb, 64)
-            )
-            out = pallas_kernels.fdct_quantize_pallas(flat, quant_zz)
-            return out.astype(xp.int16).reshape(hb, wb, 64)
     blocks = plane.reshape(hb, 8, wb, 8)
     blocks = xp.transpose(blocks, (0, 2, 1, 3)).astype(xp.float32) - xp.float32(
         level_shift
@@ -123,7 +108,7 @@ def fdct_quantize(plane, quant_zz, xp=np, *, use_matmul: bool = True,
     if use_matmul:
         flat = blocks.reshape(hb * wb, 64)
         k = fdct_zigzag_matrix() if xp is np else xp.asarray(fdct_zigzag_matrix())
-        zz = (flat @ k).reshape(hb, wb, 64)
+        zz = dct.matmul(flat, k, xp=xp).reshape(hb, wb, 64)
         return xp.rint(zz / q).astype(xp.int16)
     coef = dct.fdct8x8(blocks, xp=xp)  # [hb, wb, 8, 8] natural order
     flat = coef.reshape(hb, wb, 64)
@@ -186,8 +171,8 @@ def jitted_forward(
 ):
     """One compiled device program for the encode transform of all
     components: zero-pad, box subsample, level shift, folded-GEMM FDCT
-    and quantization — the TPU-native encode path (eager jnp over a
-    remote chip pays a dispatch round trip per op; this is one program).
+    and quantization as one device program (eager jnp would dispatch
+    once per op).
 
     Returns fn(planes_tuple uint8, quants_stacked int32 [C, 64]) ->
     tuple of zig-zag int16 coefficient planes.

@@ -98,10 +98,7 @@ def decode_batch_rgb(
     transform on device (DCT modes; lossless images downsample on
     host).
     """
-    import jax
     import jax.numpy as jnp
-
-    from ..ops.pipeline import transform_to_rgb8
 
     scale_n = int(round(8 * scale))
     if scale_n not in (1, 2, 4, 8) or abs(8 * scale - scale_n) > 1e-9:
@@ -148,13 +145,8 @@ def decode_batch_rgb(
         stacked2 = _stack_payloads2(batch, geometry)
         if stacked2 is not None:
             quants = _stacked_quants(batch, geometry)
-            stacked = stacked2
-            if mesh is not None:
-                from jax.sharding import NamedSharding, PartitionSpec as P
-
-                stacked = jax.device_put(stacked, NamedSharding(mesh, P("data")))
             rgb = np.asarray(
-                _batched_mcu_transform2(geometry, scale_n)(stacked, quants)
+                _batched_mcu_transform2(geometry, scale_n, mesh)(stacked2, quants)
             )
             rgb = np.moveaxis(rgb, 1, -1)  # planar CHW -> HWC
             for j, i in enumerate(indices):
@@ -168,12 +160,8 @@ def decode_batch_rgb(
             # same-geometry images may carry different quality tables.
             quants = _stacked_quants(batch, geometry)
             stacked = np.stack([r.packed_mcu for r in batch])
-            if mesh is not None:
-                from jax.sharding import NamedSharding, PartitionSpec as P
-
-                stacked = jax.device_put(stacked, NamedSharding(mesh, P("data")))
             rgb = np.asarray(
-                _batched_mcu_transform(geometry, scale_n)(stacked, quants)
+                _batched_mcu_transform(geometry, scale_n, mesh)(stacked, quants)
             )
             rgb = np.moveaxis(rgb, 1, -1)  # planar CHW -> HWC
             for j, i in enumerate(indices):
@@ -201,12 +189,8 @@ def decode_batch_rgb(
 
         if packed_batch is not None:
             quants = _stacked_quants(batch, geometry)
-            fn = _batched_transform_delta(geometry, scale_n)
+            fn = _batched_transform_delta(geometry, scale_n, mesh)
             inp = packed_batch
-            if mesh is not None:
-                from jax.sharding import NamedSharding, PartitionSpec as P
-
-                inp = jax.device_put(inp, NamedSharding(mesh, P("data")))
         else:
             if scale_n != 8:
                 raise RuntimeError(
@@ -220,18 +204,13 @@ def decode_batch_rgb(
                 )
                 for c in geometry.components
             )
-            fn = _batched_transform(geometry)
+            fn = _batched_transform(geometry, mesh)
             inp = tuple(
                 jnp.asarray(
                     np.stack([r.coefficients[c.component_index] for r in batch])
                 )
                 for c in geometry.components
             )
-            if mesh is not None:
-                from jax.sharding import NamedSharding, PartitionSpec as P
-
-                sharding = NamedSharding(mesh, P("data"))
-                inp = tuple(jax.device_put(c, sharding) for c in inp)
         rgb = np.asarray(fn(inp, quants))
         if packed_batch is not None:  # delta path outputs planar CHW
             rgb = np.moveaxis(rgb, 1, -1)
@@ -246,19 +225,14 @@ def decode_stream_rgb(datas, *, depth: int = 4, scan_workers: int = 2,
     """Pipelined streaming decode: yields device-resident RGB arrays in
     input order while the host scans ahead.
 
-    Two levels of overlap (the steady-state serving pipeline bench.py
-    measures): ``scan_workers`` host threads run the per-image stages
-    (container parse + entropy scan — independent across images, and the
-    native calls release the GIL) while ``device_workers`` threads run
-    the transfer + transform dispatch (2 double-buffers the host->device
-    transfer of image i+1 under the transform of image i — this matters
-    on remote-attached chips where each dispatch pays a network RTT);
-    ``depth`` bounds in-flight work. The default of 4 is measured, not
-    guessed: round-5 interleaved A/B campaigns on the shared host gave
-    pair-median +6-16% over depth=2 for both depth=4 and depth=6 (the
-    extra queue slack absorbs tenant-load stalls at the pipeline's sync
-    points instead of multiplying them), with depth=6 showing no
-    consistent further gain over 4.
+    Two levels of overlap: ``scan_workers`` host threads run the
+    per-image stages (container parse + entropy scan — independent
+    across images, and the native calls release the GIL) while
+    ``device_workers`` threads run the transfer + transform dispatch
+    (2 double-buffers the host->device transfer of image i+1 under the
+    transform of image i); ``depth`` bounds in-flight work. The
+    defaults (``depth=4``, ``device_workers=1``) are not measured on the
+    GPU.
 
     ``group`` > 1 amortizes per-dispatch overhead: up to ``group``
     consecutive images whose payloads share geometry and bucket size
@@ -289,8 +263,8 @@ def decode_stream_rgb(datas, *, depth: int = 4, scan_workers: int = 2,
         return res
 
     def one_rgb(res):
-        """Planar [3, H, W] uint8 (device-resident for DCT modes; see
-        DecodeResult.to_rgb8_device on why CHW)."""
+        """Planar [3, H, W] uint8 (device-resident for DCT modes; the
+        layout of DecodeResult.to_rgb8_device)."""
         if res.samples is not None:  # lossless: host path
             rgb = res.to_rgb8()
             if scale_n != 8:
@@ -360,59 +334,59 @@ def decode_stream_rgb(datas, *, depth: int = 4, scan_workers: int = 2,
                 yield rgb
 
 
+def _batched(fn, mesh):
+    """vmap ``fn`` over a leading batch axis and compile it: for one
+    device, or per shard over the mesh's ``data`` axis."""
+    import jax
+    from jax.sharding import PartitionSpec as P
+
+    fn = jax.vmap(fn, in_axes=(0, 0))
+    if mesh is None:
+        return jax.jit(fn)
+    from .sharding import shard_local
+
+    return shard_local(fn, mesh, (P("data"), P("data")), P("data"))
+
+
 @functools.lru_cache(maxsize=64)
-def _batched_mcu_transform2(geometry, scale_n: int = 8):
+def _batched_mcu_transform2(geometry, scale_n: int = 8, mesh=None):
     """vmapped v2-wire transform: [B, K] uint8 payload batch ->
     [B, 3, H, W] planar RGB (jit re-specializes per (B, bucket));
-    bounded like its v1 sibling."""
-    import jax
-
+    bounded like its v1 sibling. With a mesh the batch shards over
+    ``data``."""
     from ..ops.pipeline import jitted_transform_mcu2_inner
 
-    inner = jitted_transform_mcu2_inner(geometry, "rgb8", "duplicate", scale_n)
-    return jax.jit(jax.vmap(inner, in_axes=(0, 0)))
+    return _batched(jitted_transform_mcu2_inner(geometry, "rgb8", "duplicate", scale_n), mesh)
 
 
 @functools.lru_cache(maxsize=64)
-def _batched_mcu_transform(geometry, scale_n: int = 8):
+def _batched_mcu_transform(geometry, scale_n: int = 8, mesh=None):
     """vmapped MCU-order sparse transform: [B, 2n] int16 payload batch
     -> [B, 3, H, W] planar RGB (jit re-specializes per (B, bucket)).
     Bounded like the sibling caches in ops/pipeline.py — a long-running
     server seeing many geometries must not accumulate executables
     forever."""
-    import jax
-
     from ..ops.pipeline import jitted_transform_mcu_inner
 
-    inner = jitted_transform_mcu_inner(geometry, "rgb8", "duplicate", scale_n)
-    return jax.jit(jax.vmap(inner, in_axes=(0, 0)))
+    return _batched(jitted_transform_mcu_inner(geometry, "rgb8", "duplicate", scale_n), mesh)
 
 
 @functools.lru_cache(maxsize=64)
-def _batched_transform_delta(geometry, scale_n: int = 8):
+def _batched_transform_delta(geometry, scale_n: int = 8, mesh=None):
     """vmapped delta-sparse transform: [B, n, 2] int16 packed batch ->
     [B, H, W, 3] RGB."""
-    import jax
-
     from ..ops.pipeline import jitted_transform_delta
 
-    inner = jitted_transform_delta(geometry, "rgb8", "duplicate", scale_n)
-    return jax.jit(jax.vmap(inner, in_axes=(0, 0)))
+    return _batched(jitted_transform_delta(geometry, "rgb8", "duplicate", scale_n), mesh)
 
 
 @functools.lru_cache(maxsize=64)
-def _batched_transform(geometry):
-    import jax
+def _batched_transform(geometry, mesh=None):
     import jax.numpy as jnp
 
     from ..ops.pipeline import transform_to_rgb8
 
-    return jax.jit(
-        jax.vmap(
-            lambda cs, qs: transform_to_rgb8(cs, qs, geometry, xp=jnp),
-            in_axes=(0, 0),
-        )
-    )
+    return _batched(lambda cs, qs: transform_to_rgb8(cs, qs, geometry, xp=jnp), mesh)
 
 
 def encode_batch_rgb(

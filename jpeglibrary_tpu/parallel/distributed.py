@@ -163,7 +163,7 @@ def decode_batch_rgb_global(datas: Sequence[bytes], *, scan_workers=None):
         qglob = jax.make_array_from_callback(
             (n,) + quants.shape[1:], sh, quants2_cb
         )
-        return _batched_mcu_transform2(geometry, 8)(payload, qglob)
+        return _batched_mcu_transform2(geometry, 8, mesh)(payload, qglob)
 
     packs = [
         native_scanner.pack_sparse(
@@ -198,4 +198,4 @@ def decode_batch_rgb_global(datas: Sequence[bytes], *, scan_workers=None):
 
     payload = jax.make_array_from_callback((n, width), sh, payload_cb)
     qglob = jax.make_array_from_callback((n,) + quants.shape[1:], sh, quants_cb)
-    return _batched_transform_delta(geometry, 8)(payload, qglob)
+    return _batched_transform_delta(geometry, 8, mesh)(payload, qglob)

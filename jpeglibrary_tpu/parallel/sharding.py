@@ -36,11 +36,24 @@ def make_mesh(n_devices: Optional[int] = None, *, stripe: int = 1):
     return Mesh(devs, ("data", "stripe"))
 
 
+def shard_local(fn, mesh, in_specs, out_specs):
+    """``jax.jit`` of ``fn`` run by every device on its own shard
+    (``shard_map``). The decode programs hold a Triton kernel on the GPU
+    (ops.idct_kernel), a custom call XLA's partitioner has no sharding
+    rule for; per-shard programs keep each device on its own data with
+    no collective (checked by ``chip_smoke.py --four``)."""
+    import jax
+
+    return jax.jit(
+        jax.shard_map(fn, mesh=mesh, in_specs=in_specs, out_specs=out_specs, check_vma=False)
+    )
+
+
 def _fdct_quantize_batch(planes, qt_zz, xp):
     """[B, H, W] int samples -> [B, Hb, Wb, 64] int16 zig-zag coeffs:
-    level shift + folded-GEMM AAN FDCT + quantize (one MXU matmul per
-    image; same math as ops.encode_stage.fdct_quantize)."""
-    from ..ops import encode_stage
+    level shift + folded-GEMM AAN FDCT + quantize (one matrix product
+    per image; same math as ops.encode_stage.fdct_quantize)."""
+    from ..ops import dct, encode_stage
 
     b, h, w = planes.shape
     hb, wb = h // 8, w // 8
@@ -52,7 +65,7 @@ def _fdct_quantize_batch(planes, qt_zz, xp):
         - xp.float32(128.0)
     )
     k = xp.asarray(encode_stage.fdct_zigzag_matrix())
-    zz = blocks @ k
+    zz = dct.matmul(blocks, k, xp=xp)
     q = qt_zz.astype(xp.float32)
     return xp.rint(zz / q).astype(xp.int16).reshape(b, hb, wb, 64)
 
@@ -89,11 +102,33 @@ def full_step(y_coeffs, cb_coeffs, cr_coeffs, qt_luma, qt_chroma):
     """
     import jax.numpy as jnp
 
-    from ..ops import color as color_ops
-    from ..ops import decode_stage, encode_stage
+    from ..ops import encode_stage
 
     xp = jnp
-    b, hb, wb, _ = y_coeffs.shape
+    b = y_coeffs.shape[0]
+    rgb, requant_y, requant_cb, requant_cr = full_step_transform(
+        y_coeffs, cb_coeffs, cr_coeffs, qt_luma, qt_chroma, xp
+    )
+
+    # ---- true symbol statistics (histogram all-reduce over the mesh) ----
+    y_mcu = _mcu_order_batch(requant_y, 2, 2, xp)
+    chroma_mcu = xp.concatenate(
+        [requant_cb.reshape(b, -1, 64), requant_cr.reshape(b, -1, 64)], axis=0
+    )  # each chroma component is its own DC predictor chain
+    dc_l, ac_l = encode_stage.symbol_histograms_device(y_mcu, xp)
+    dc_c, ac_c = encode_stage.symbol_histograms_device(chroma_mcu, xp)
+    hists = xp.stack([dc_l, ac_l, dc_c, ac_c])
+    return rgb, requant_y, hists
+
+
+def full_step_transform(y_coeffs, cb_coeffs, cr_coeffs, qt_luma, qt_chroma, xp):
+    """The transform half of :func:`full_step` for any array module
+    (numpy evaluates the same step on the host): returns (rgb,
+    requant_y, requant_cb, requant_cr)."""
+    from ..ops import color as color_ops
+    from ..ops import decode_stage
+
+    b = y_coeffs.shape[0]
 
     # ---- decode transform ----
     def comp_plane(cz, qz, up):
@@ -125,16 +160,7 @@ def full_step(y_coeffs, cb_coeffs, cr_coeffs, qt_luma, qt_chroma):
     requant_y = _fdct_quantize_batch(y2.astype(xp.int32), qt_luma, xp)
     requant_cb = _fdct_quantize_batch(box2x2(cb2), qt_chroma, xp)
     requant_cr = _fdct_quantize_batch(box2x2(cr2), qt_chroma, xp)
-
-    # ---- true symbol statistics (histogram all-reduce over the mesh) ----
-    y_mcu = _mcu_order_batch(requant_y, 2, 2, xp)
-    chroma_mcu = xp.concatenate(
-        [requant_cb.reshape(b, -1, 64), requant_cr.reshape(b, -1, 64)], axis=0
-    )  # each chroma component is its own DC predictor chain
-    dc_l, ac_l = encode_stage.symbol_histograms_device(y_mcu, xp)
-    dc_c, ac_c = encode_stage.symbol_histograms_device(chroma_mcu, xp)
-    hists = xp.stack([dc_l, ac_l, dc_c, ac_c])
-    return rgb, requant_y, hists
+    return rgb, requant_y, requant_cb, requant_cr
 
 
 def mesh_symbol_frequencies(blocks: np.ndarray, mesh):
@@ -230,8 +256,7 @@ def _sharded_baseline_sparse2(res, mesh, axis: str):
     """Single-scan baseline on the v2 wire: per-stripe slices of the
     split-stream payload (0.4-0.6x the v1 stripe transfer bytes)."""
     import jax
-    import jax.numpy as jnp
-    from jax.sharding import NamedSharding, PartitionSpec as P
+    from jax.sharding import PartitionSpec as P
 
     from ..models.geometry import ceil_div
     from ..models.streaming import _stripe_geometry, split_payload2_stripes
@@ -250,22 +275,14 @@ def _sharded_baseline_sparse2(res, mesh, axis: str):
 
     sgeo = _stripe_geometry(geo, stripe_rows, stripe_rows * 8 * geo.max_v)
     inner = jitted_transform_mcu2_inner(sgeo, "rgb8")
-    sh = NamedSharding(mesh, P(axis))
-    rep = NamedSharding(mesh, P())
-    fn = jax.jit(
-        jax.vmap(inner, in_axes=(0, None)),
-        in_shardings=(sh, rep),
-        out_shardings=sh,
-    )
-    out = fn(jax.device_put(payloads, sh), jnp.asarray(quants))
-    return out, heights
+    fn = shard_local(jax.vmap(inner, in_axes=(0, None)), mesh, (P(axis), P()), P(axis))
+    return fn(payloads, quants), heights
 
 
 def _sharded_baseline_sparse(res, mesh, axis: str):
     """Single-scan baseline: per-stripe slices of the sparse payload."""
     import jax
-    import jax.numpy as jnp
-    from jax.sharding import NamedSharding, PartitionSpec as P
+    from jax.sharding import PartitionSpec as P
 
     from ..models.geometry import ceil_div
     from ..models.streaming import _stripe_geometry, split_payload_stripes
@@ -283,15 +300,8 @@ def _sharded_baseline_sparse(res, mesh, axis: str):
     # Uniform stripe geometry, uncropped height (assembly crops).
     sgeo = _stripe_geometry(geo, stripe_rows, stripe_rows * 8 * geo.max_v)
     inner = jitted_transform_mcu_inner(sgeo, "rgb8")
-    sh = NamedSharding(mesh, P(axis))
-    rep = NamedSharding(mesh, P())
-    fn = jax.jit(
-        jax.vmap(inner, in_axes=(0, None)),
-        in_shardings=(sh, rep),
-        out_shardings=sh,
-    )
-    out = fn(jax.device_put(payloads, sh), jnp.asarray(quants))
-    return out, heights
+    fn = shard_local(jax.vmap(inner, in_axes=(0, None)), mesh, (P(axis), P()), P(axis))
+    return fn(payloads, quants), heights
 
 
 def _sharded_dense_coefficients(res, mesh, axis: str):
@@ -301,7 +311,7 @@ def _sharded_dense_coefficients(res, mesh, axis: str):
     (JpegHuffmanProgressiveScanDecoder.cs:421-470)."""
     import jax
     import jax.numpy as jnp
-    from jax.sharding import NamedSharding, PartitionSpec as P
+    from jax.sharding import PartitionSpec as P
 
     from ..models.geometry import ceil_div
     from ..models.streaming import _stripe_geometry
@@ -326,21 +336,14 @@ def _sharded_dense_coefficients(res, mesh, axis: str):
     )
     heights = [max(0, min(px, geo.height - i * px)) for i in range(S)]
 
-    sh = NamedSharding(mesh, P(axis))
-    rep = NamedSharding(mesh, P())
-    fn = jax.jit(
+    fn = shard_local(
         jax.vmap(
             lambda cs, qs: transform_to_rgb8(cs, qs, sgeo, xp=jnp, layout="chw"),
             in_axes=(0, None),
         ),
-        in_shardings=(
-            tuple(sh for _ in stripes),
-            tuple(rep for _ in quants),
-        ),
-        out_shardings=sh,
+        mesh, (P(axis), P()), P(axis),
     )
-    out = fn(tuple(jax.device_put(s, sh) for s in stripes), quants)
-    return out, heights
+    return fn(tuple(stripes), quants), heights
 
 
 def _sharded_lossless(res, mesh, axis: str):
@@ -421,20 +424,16 @@ def batched_transform_rgb(coeffs_batch: Sequence, quants, geometry, mesh=None):
     over ``data`` when a mesh is given."""
     import jax
     import jax.numpy as jnp
-    from jax.sharding import NamedSharding, PartitionSpec as P
+    from jax.sharding import PartitionSpec as P
 
     from ..ops.pipeline import transform_to_rgb8
 
     stacked = tuple(
         jnp.stack([jnp.asarray(c[i]) for c in coeffs_batch]) for i in range(len(quants))
     )
-    fn = jax.jit(
-        jax.vmap(
-            lambda cs, qs: transform_to_rgb8(cs, qs, geometry, xp=jnp),
-            in_axes=(0, None),
-        )
+    fn = jax.vmap(
+        lambda cs, qs: transform_to_rgb8(cs, qs, geometry, xp=jnp),
+        in_axes=(0, None),
     )
-    if mesh is not None:
-        sharding = NamedSharding(mesh, P("data"))
-        stacked = tuple(jax.device_put(s, sharding) for s in stacked)
+    fn = jax.jit(fn) if mesh is None else shard_local(fn, mesh, (P("data"), P()), P("data"))
     return fn(stacked, tuple(jnp.asarray(q) for q in quants))

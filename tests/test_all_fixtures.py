@@ -14,8 +14,8 @@ ASSETS = pathlib.Path("/root/reference/tests/Assets")
 FIXTURES = sorted(str(p)[: -len(".high.png")] for p in ASSETS.rglob("*.high.png"))
 
 
-def test_fixture_inventory_complete():
-    assert len(FIXTURES) == 17
+def test_fixture_inventory_complete(assets_dir):
+    assert len(list(assets_dir.rglob("*.high.png"))) == 17
 
 
 @pytest.mark.parametrize(

@@ -52,8 +52,8 @@ def test_scaled_flat_image_exact():
         np.testing.assert_array_equal(s, full[::f, ::f])
 
 
-def test_scaled_vs_pil_draft():
-    data = open("/root/reference/tests/Assets/baseline/lake.jpg", "rb").read()
+def test_scaled_vs_pil_draft(assets_dir):
+    data = (assets_dir / "baseline/lake.jpg").read_bytes()
     res = jt.decode(data)
     ours = np.asarray(res.to_rgb8_scaled(0.125)).astype(np.float64)
     im = Image.open(io.BytesIO(data))
